@@ -1,7 +1,7 @@
 """State-space particle filtering — single chip and sharded.
 
 The BASELINE.json north-star workload: particles shard over a device mesh;
-ESS, normalizers, and resampling are ICI collectives.
+ESS, normalizers, and resampling are XLA collectives.
 (Run with XLA_FLAGS=--xla_force_host_platform_device_count=8 on CPU to see
 multi-device execution.)
 """

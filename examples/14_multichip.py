@@ -1,6 +1,6 @@
 """The multi-chip story: one mesh, sharded particles and chains.
 
-The BASELINE.json north star — chains/particles sharded over ICI with XLA
+The BASELINE.json north star — chains/particles sharded over devices with XLA
 collectives — as a runnable narrative. On real hardware this runs
 unchanged across a pod slice; here it exercises the same programs on
 however many devices are visible (CI forces an 8-device CPU mesh).

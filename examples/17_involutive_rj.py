@@ -12,7 +12,7 @@ volume change, and reversible-jump moves across model structures
 
 The reversible-jump section uses the *saturated-space* formulation
 (Brooks, Giudici & Roberts 2003): every structure's block is always
-sampled (fixed shapes — the TPU-native representation), the likelihood
+sampled (fixed shapes — the jit-native representation), the likelihood
 selects the live block by the structure flag, and dormant blocks sit at
 their pseudo-prior. All coordinates are scored, so the involutive
 acceptance is exact with no trans-dimensional special-casing — and every

@@ -4,7 +4,7 @@ Two regimes the single-chip reference cannot touch:
 
 1. **Exact, data-sharded**: the dataset lives sharded across a mesh axis;
    the log-likelihood (and its gradient) is computed shard-locally and
-   `psum`-reduced over ICI. The result is an ordinary column log-density —
+   `psum`-reduced across devices. The result is an ordinary column log-density —
    full-batch HMC/NUTS run on it unchanged, and the posterior is exact.
 2. **Stochastic-gradient**: SGLD steps on unbiased minibatch gradients —
    O(batch) per step instead of O(dataset), with the standard O(eps)
@@ -73,7 +73,7 @@ def main():
     q0 = jnp.asarray(np.random.RandomState(1).randn(8, n_chains), jnp.float32)
     q, accept = jax.jit(
         lambda: pallas_hmc(
-            ld, q0, 11, n_steps=400, eps=0.04, L=10, backend="xla"
+            ld, q0, 11, n_steps=400, eps=0.04, L=10
         )
     )()
     draws = np.asarray(q[:D])

@@ -56,7 +56,6 @@ def main():
         n_steps=300,
         eps=0.05,
         L=8,
-        backend="xla",
     )
     draws = np.asarray(q[:3])  # (3, chains)
     la, ll_, ln = draws.mean(axis=1)
@@ -81,8 +80,7 @@ def main():
     K = np.asarray(
         sq_exp_kernel(X, X, np.exp(la), np.exp(ll_))
     ) + 1e-5 * np.eye(N_TRAIN)
-    # HOST numpy: an eager device array captured as a jit constant stalls
-    # TPU lowering ~90s (CLAUDE.md); the trace converts it for free
+    # HOST numpy: the trace converts it for free
     chol = np.linalg.cholesky(K).astype(np.float32)
     noise2 = float(np.exp(2 * ln))
 
@@ -109,7 +107,7 @@ def main():
     # Gaussian observation noise? Use the FAST PATH: ll(theta) along the
     # ellipse is a six-coefficient trig quadratic, so the shrink loop is
     # O(chains) instead of O(D x chains) per iteration — same Markov
-    # chain, 3.4x on the v5e at D=256 (kernels/elliptical.py).
+    # chain (kernels/elliptical.py).
     f_fast, _ = jax.jit(
         lambda: ess_sweep_gauss_cols(
             jnp.zeros((N_TRAIN, 1024), jnp.float32),

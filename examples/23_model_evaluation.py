@@ -34,8 +34,7 @@ YS = (0.5 * XS**2 - 0.4 * XS + SIGMA * rng.randn(N)).astype(np.float32)
 
 
 def make_model(degree):
-    # HOST numpy: an eager device array captured as a jit constant stalls
-    # TPU lowering (CLAUDE.md); traces convert host arrays for free
+    # HOST numpy: traces convert host arrays for free
     feats = np.stack([XS**p for p in range(degree + 1)], 1).astype(
         np.float32
     )

@@ -1,6 +1,6 @@
 """Multi-slice SMC: the island particle filter on a 2-level mesh.
 
-A TPU pod has two interconnects: ICI inside a slice (collectives every
+A multi-host cluster has two interconnects: ICI inside a slice (collectives every
 scan step are fine) and DCN across slices (orders slower — traffic must
 be rare and scheduled). The island particle model (Vergé et al. 2015)
 maps onto that split: the population divides into islands, one per

@@ -7,7 +7,7 @@ rho = 0.99 diagonal HMC takes ~7x smaller steps — and pays ~7x the
 gradient evaluations per effective sample. The massive-chain regime
 fixes this for free: one cross-chain time slice estimates the FULL
 posterior covariance (no windowing, no autocorrelation correction), and
-applying it costs two (D, D) x (D, N) MXU matmuls per leapfrog
+applying it costs two (D, D) x (D, N) matmuls per leapfrog
 (`kernels/dense_mass.py`).
 
 Three entry points, top-down:
@@ -101,7 +101,7 @@ def main():
     q, accept, packer = column_hmc(
         model, obs, (), ["w"],
         n_chains=512, n_steps=300, eps=0.3, L=4,
-        warmup=True, mass="dense", backend="xla",
+        warmup=True, mass="dense",
     )
     draws = np.asarray(q[:2])
     np.testing.assert_allclose(draws.mean(axis=1), mean_post, atol=0.05)

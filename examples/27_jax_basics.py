@@ -3,7 +3,7 @@
 Counterpart of the reference's fifth active cookbook
 (`/root/reference/docs/cookbook/active/jax_basics.ipynb`): the JAX
 mental model a `genjax_tpu` user needs — written as executable
-assertions, TPU-first. Each section states the rule, then proves it.
+assertions. Each section states the rule, then proves it.
 """
 
 import jax
@@ -128,8 +128,8 @@ def traces_are_pytrees():
 
 
 # ----------------------------------------------------------------------
-# 6. float32 is the default; TPUs run matmuls in bf16-accumulate-f32 by
-#    default. Work in f32 and let XLA pick the MXU path.
+# 6. float32 is the default; a GPU may run f32 matmuls in TF32 at default
+#    precision. Work in f32 and ask for "highest" where it matters.
 # ----------------------------------------------------------------------
 def dtype_reality():
     x = jnp.ones(3)

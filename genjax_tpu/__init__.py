@@ -1,12 +1,12 @@
-"""genjax_tpu — a TPU-native probabilistic programming framework with
-programmable inference.
+"""genjax_tpu — a probabilistic programming framework with programmable
+inference, compiled by XLA for accelerators.
 
 A ground-up implementation of the Gen paradigm (generative functions + the
-GFI: simulate / assess / generate / project / edit) designed for TPU
+GFI: simulate / assess / generate / project / edit) designed for accelerator
 hardware: traces and choice maps are flat pytrees-of-arrays whose leading
-batch axis shards over a ``jax.sharding.Mesh``; inference (SIR/SMC, MCMC/HMC,
-programmable VI via ADEV) runs vectorized per chip and scales across chips
-with XLA collectives.
+batch axis shards over a ``jax.sharding.Mesh``; inference (SIR/SMC,
+MCMC/HMC, programmable VI via ADEV) runs vectorized per chip and scales
+across chips with XLA collectives.
 
 Capability parity target: ``genjax`` (MIT Probabilistic Computing Project),
 reference at ``/root/reference`` — see each module's docstring for the

@@ -8,7 +8,7 @@ next-slice weight fixup), decorators ``scan`` :672, ``accumulate`` :791,
 ``reduce`` :854, ``iterate`` :916, ``iterate_final`` :980, ``masked_iterate``
 :1101, ``masked_iterate_final`` :1050, ``prepend_initial_acc`` :762.
 
-TPU-first notes: the whole sequence runs inside a single XLA while-loop
+Design notes: the whole sequence runs inside a single XLA while-loop
 (``lax.scan``), the stacked inner trace is contiguous in HBM (time axis in
 front), and ``edit_index`` costs two dynamic slices + two dynamic-update
 slices per leaf regardless of sequence length.

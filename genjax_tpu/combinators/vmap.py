@@ -6,7 +6,7 @@ combinators/vmap.py`` (420 LoC) — ``VmapTrace`` :55, axis-length validation
 ``project`` :220, ``assess`` :363, ``edit_choice_map`` :237, ``edit_index``
 :277 (O(1) slice-edit-scatter), ``edit`` :334, decorator ``vmap`` :384.
 
-TPU-first notes: the batched inner trace is a *single pytree* whose leaves
+Design notes: the batched inner trace is a *single pytree* whose leaves
 carry the batch axis in front — exactly the layout that shards over a device
 mesh with ``NamedSharding(("batch", ...))``. ``edit_index`` lowers to one
 dynamic-slice + one dynamic-update-slice per leaf (no gather/scatter over

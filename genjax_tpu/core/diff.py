@@ -4,7 +4,7 @@ Parity: reference ``/root/reference/src/genjax/_src/core/compiler/interpreters/
 incremental.py`` — ``ChangeTangent`` :57, ``Diff`` :89, ``NoChange``/
 ``UnknownChange``, and the propagation rule :300.
 
-TPU-first design: instead of a Jaxpr-level forward interpreter, diffs are
+Design: instead of a Jaxpr-level forward interpreter, diffs are
 propagated *structurally* at Python trace time. Under ``jit`` this is free —
 the payoff of ``NoChange`` is that edit handlers can skip re-binding whole
 sub-programs (e.g. ``Scan``'s O(1) index edit), which is where the real

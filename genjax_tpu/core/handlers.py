@@ -1,6 +1,6 @@
 """Trace-time effect-handler dispatch for the ``@gen`` language.
 
-This is the TPU-native replacement for the reference's stateful Jaxpr
+This is the replacement for the reference's stateful Jaxpr
 interpreter (``/root/reference/src/genjax/_src/core/compiler/interpreters/
 stateful.py`` :32-99 and the ``trace_p`` primitive machinery in
 ``static.py`` :156-252).

@@ -1,6 +1,6 @@
 """Pytree dataclass substrate.
 
-TPU-first design note: every framework object (traces, choice maps, requests,
+Design note: every framework object (traces, choice maps, requests,
 generative functions) is a frozen dataclass registered with JAX's pytree system
 via ``jax.tree_util.register_dataclass``. Static fields live in the treedef
 (hashable, compared at trace time); dynamic fields are array leaves, so a batch

@@ -10,8 +10,8 @@ via Baum-Welch (the discrete twin of ``lgssm_em``), and MAP path decoding
 via Viterbi.
 
 All three are single ``lax.scan`` passes whose per-step work is an
-``(N, N)`` log-matrix product — VPU/MXU-batched, no host logic. Everything
-operates in log space (no underflow for long sequences).
+``(N, N)`` log-matrix product — batched matmul/elementwise, no host logic.
+Everything operates in log space (no underflow for long sequences).
 
 Convention: ``log_pi (N,)`` initial, ``log_trans (N, N)`` rows =
 ``log p(z_t = j | z_{t-1} = i)``, ``log_obs (N, M)`` rows =
@@ -109,15 +109,15 @@ def forward_parallel(log_pi, log_trans, log_obs, ys):
     the forward recursion is a chain of log-space matrix products
     ``alpha_t = alpha_{t-1} ∘ M_t`` with ``M_t(i, j) = trans(i, j) +
     obs_t(j)`` — matrix product over the (log, +) semiring is associative,
-    so the whole chain evaluates in O(log T) DEPTH (T·N³ work): on a TPU
-    the sequential scan's T-long dependency chain becomes log₂(T) rounds
-    of batched (N, N) einsums. Returns ``(alphas (T, N), log_marginal)``,
-    bit-compatible with the sequential :func:`forward_backward` alphas up
-    to float-summation order.
+    so the whole chain evaluates in O(log T) DEPTH (T·N³ work): on an
+    accelerator the sequential scan's T-long dependency chain becomes
+    log₂(T) rounds of batched (N, N) einsums. Returns
+    ``(alphas (T, N), log_marginal)``, bit-compatible with the sequential
+    :func:`forward_backward` alphas up to float-summation order.
 
     Worth it when T is large and N is small-to-moderate (N³ work per step
     vs the sequential N² — the crossover is wherever the T-step latency
-    chain dominates, which on TPU is almost immediately)."""
+    chain dominates)."""
     lo = log_obs[:, ys].T  # (T, N)
     _, prefix = _semiring_prefix(log_trans, lo, logsumexp)
     alpha0 = log_pi + lo[0]

@@ -13,8 +13,8 @@ Model:  z_0 ~ N(mu0, P0);  z_t = A z_{t-1} + w_t, w_t ~ N(0, Q);
         y_t = C z_t + v_t, v_t ~ N(0, R),  observations t = 0..T-1 on z_t
         (the first observation is of z_0 — i.e. y_0 ~ N(C z_0, R)).
 
-TPU-native: each pass is one ``lax.scan`` whose per-step work is dense
-(Dz, Dz) matmuls and solves — MXU-resident for large state dims, and the
+Formulation: each pass is one ``lax.scan`` whose per-step work is dense
+(Dz, Dz) matmuls and solves — matmul-bound for large state dims, and the
 whole FFBS (two scans) jits into a single program. Serves as the exact
 testbed for particle filters, particle Gibbs, and SMC² (which all
 hand-roll scalar Kalman recursions in their tests otherwise).
@@ -113,7 +113,7 @@ def kalman_filter_parallel(params: LGSSMParams, ys):
     filtering element ``(A, b, C, eta, J)`` whose composition is
     associative, so the T-long sequential dependency chain of
     :func:`kalman_filter` collapses to O(log T) DEPTH of batched (Dz, Dz)
-    matmuls/solves — the TPU-native formulation for long series. Returns
+    matmuls/solves — the parallel formulation for long series. Returns
     ``(filtered_means, filtered_covs)`` equal to the sequential filter's
     (up to roundoff); the log-marginal needs the sequential pass (or the
     paper's extended elements).

@@ -4,7 +4,7 @@ The reference gets these from TensorFlow Probability's substrate
 (``/root/reference/src/genjax/_src/generative_functions/distributions/
 tensorflow_probability/__init__.py``); here they are implemented directly on
 XLA-friendly fixed-iteration algorithms (static shapes, no data-dependent
-Python control flow — everything maps onto the VPU).
+Python control flow — everything is elementwise).
 """
 
 from __future__ import annotations
@@ -211,7 +211,7 @@ def _householder_rotate(y, mu):
 
 def power_spherical_sample(key, mean_direction, concentration):
     """Exact sampler for the Power Spherical distribution
-    (De Cao & Aziz, 2020) — rejection-free, TPU-friendly."""
+    (De Cao & Aziz, 2020) — rejection-free, jit-friendly."""
     mu = jnp.asarray(mean_direction, jnp.float32)
     kappa = jnp.asarray(concentration, jnp.float32)
     d = mu.shape[-1]

@@ -8,7 +8,7 @@ choice_map.py`` (1786 LoC) — ``ChoiceMap`` :847, builders
 Mask-on-mismatch lookup :1501-1531), ``Static`` :1535, ``Switch`` :1627,
 ``Or`` :1672, builder ``ChoiceMapBuilder``/``.at`` :752/1782.
 
-TPU-first redesign: ``filter`` and ``mask`` are **lazy wrapper nodes** resolved
+Redesign: ``filter`` and ``mask`` are **lazy wrapper nodes** resolved
 only when a value is actually read (``get_value``), at which point they lower
 to a handful of fused selects — no eager tree surgery, no trace-time ``vmap``
 over the address structure. All leaves are arrays (a leading batch axis on
@@ -79,7 +79,7 @@ def _slice_leaves(chm: "ChoiceMap", i) -> "ChoiceMap":
     def ix(leaf):
         if _is_dynamic(leaf) and jnp.ndim(leaf) >= 1:
             if isinstance(leaf, np.ndarray) and _is_dynamic(i):
-                # host-numpy leaves (the recommended carrier for TPU model
+                # host-numpy leaves (the recommended carrier for model
                 # constants) cannot be indexed by a tracer directly
                 return jnp.asarray(leaf)[i]
             return leaf[i]

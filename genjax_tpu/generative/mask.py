@@ -6,7 +6,7 @@ functional_types.py`` (``Mask`` :43, ``build``/``maybe_mask`` :145-187,
 ``unmask`` :233-260, ``__or__/__xor__/__invert__`` :283-342; flag-shape
 prefix rule :79-107).
 
-On TPU, sum types must be encoded as data: a ``Mask`` is a value plus a
+Under jit, sum types must be encoded as data: a ``Mask`` is a value plus a
 boolean validity flag. Flags may be scalar or vectorized — a vectorized flag's
 shape must be a prefix of every leaf's shape so that a batch of particles can
 carry per-particle validity.

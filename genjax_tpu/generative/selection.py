@@ -328,7 +328,7 @@ def _is_dynamic_int(comp) -> bool:
     import numpy as np
 
     if isinstance(comp, np.ndarray):
-        # host-numpy index arrays (the recommended TPU carrier) must take
+        # host-numpy index arrays (the recommended carrier) must take
         # the IdxSel path too: a vector in StaticSel would yield a
         # non-scalar Flag from the match
         return comp.ndim > 0

@@ -12,16 +12,20 @@ stable.
 
 from ..kernels.adaptation import (
     StepSizeAdaptState,
+    adapt_window,
     cross_chain_inv_mass,
     dual_averaging_update,
     multiplicative_nudge,
+    rescale_for_metric,
     windowed_warmup,
 )
 
 __all__ = [
     "StepSizeAdaptState",
+    "adapt_window",
     "cross_chain_inv_mass",
     "dual_averaging_update",
     "multiplicative_nudge",
+    "rescale_for_metric",
     "windowed_warmup",
 ]

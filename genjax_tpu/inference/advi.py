@@ -8,9 +8,9 @@ complement — the guide is a Gaussian over the packed column vector
 (mean-field diagonal, or full-rank via a Cholesky factor), fit by
 stochastic reparameterized ELBO gradients, no guide program required.
 
-TPU shape: a K-sample ELBO batch is one ``(D, K)`` matrix; the full-rank
+Shape: a K-sample ELBO batch is one ``(D, K)`` matrix; the full-rank
 reparameterization ``z = mu + L @ eps`` is a ``(D, D) @ (D, K)`` matmul
-(MXU-resident), and the target is evaluated through the standard column
+(matmul-bound), and the target is evaluated through the standard column
 convention ``(D, K) -> (K,)``, so sharded big-data targets
 (``parallel.data.data_sharded_logdensity``) drop in unchanged.
 

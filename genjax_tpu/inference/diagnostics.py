@@ -3,7 +3,7 @@
 No reference counterpart (SURVEY.md §5: no metrics/observability beyond
 rendering) — production chain batches need convergence monitoring. All
 diagnostics are pure reductions over the (chains, draws) axes, so they
-compile to ICI collectives when the chain axis is sharded.
+compile to collectives when the chain axis is sharded.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ discrete with known finite supports: the full joint table is one vmapped
 ``assess`` over the cartesian product of supports — exact posteriors,
 marginals, and log-evidence with no sampling error.
 
-TPU-first notes: the product enumeration is a single flat ``jax.vmap``
+Design notes: the product enumeration is a single flat ``jax.vmap``
 (one compiled program; the table is laid out as one (∏Kᵢ,) batch that XLA
 tiles freely), not a Python loop over combinations. Enumeration is
 exponential in the number of sites — that is inherent; the table size is

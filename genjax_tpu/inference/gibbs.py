@@ -15,8 +15,8 @@ discrete address is the joint-density ratio
 so a categorical draw over the enumerated weights *is* the exact full
 conditional p(addr = c | rest) — a Gibbs move, accepted with probability 1.
 
-TPU-first notes: the support enumeration is one ``jax.vmap`` over
-candidates (a single compiled program, K lanes on the VPU); the per-lane
+Design notes: the support enumeration is one ``jax.vmap`` over
+candidates (a single compiled program, K lanes); the per-lane
 variant vmaps (lane × candidate) ``IndexRequest`` slice edits — valid
 *block* Gibbs because ``Vmap``-combinator lanes are conditionally
 independent given everything outside the combinator. A whole sweep chain is

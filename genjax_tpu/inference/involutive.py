@@ -20,12 +20,12 @@ where the Jacobian is taken over the *continuous* coordinates of
 volume). Dimension balance — ``dim(t) + dim(u) = dim(t') + dim(u')`` on
 the continuous ravel — is checked statically at trace time.
 
-TPU-first notes: the model-score ratio comes from one fully-determined
+Design notes: the model-score ratio comes from one fully-determined
 ``Update`` edit (no fresh sampling, so the weight is exactly
 ``log p(t') − log p(t)`` even across Switch-branch changes, provided the
 involution emits every address of the new structure); the Jacobian is a
 dense ``jax.jacfwd`` over the raveled continuous coordinates — moves are
-typically low-dimensional, so this is a few VPU-sized ops; the whole move
+typically low-dimensional, so this is a few small ops; the whole move
 is jit/vmap/scan-composable (one program, no host sync).
 """
 

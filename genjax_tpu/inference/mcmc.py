@@ -3,7 +3,7 @@
 The reference provides MCMC *moves* (HMC/Rejuvenate edit requests,
 Regenerate) but no driver — its tests hand-roll accept loops
 (/root/reference/tests/inference/test_requests.py:129-140). This module is
-the framework-level driver the reference lacks, built TPU-first: a chain is
+the framework-level driver the reference lacks: a chain is
 a ``lax.scan`` of edits, and many chains are a vmapped batch whose leading
 axis shards over a device mesh (see ``genjax_tpu.parallel``).
 
@@ -103,10 +103,10 @@ def run_chains_hmc(
 
     Same Markov chain as iterating ``mh(k, tr, HMC(selection, eps, L))``
     (momentum refresh → ``L`` leapfrogs → MH accept on the selected
-    choices, everything else frozen), but restructured TPU-first:
+    choices, everything else frozen), but restructured batch-first:
 
     - the selected choices of ALL chains are raveled once into a
-      ``(d, n_chains)`` column block (chains on lanes);
+      ``(d, n_chains)`` column block (chains on the last axis);
     - the sweep runs as one ``lax.scan`` with BULK ``(d, N)`` momentum
       draws (``kernels.hmc._reference_hmc`` — the same sweep the column
       kernels use), instead of ``n_chains`` per-chain threefry streams;
@@ -116,9 +116,8 @@ def run_chains_hmc(
     The log-density is the GFI's own ``assess`` over each chain's frozen
     complement (``grad_view.selected_logdensity`` semantics), so any model
     — static/scan/vmap/switch — composes, and per-chain constraints /
-    frozen choices are honored. Measured v5e, flagship model, 64k chains:
-    this driver closes the gap to the column kernel to ~1x, vs ~2x for
-    the per-transition edit API (``bench.py gfi`` mode).
+    frozen choices are honored. ``bench.py gfi`` compares it with the
+    column kernel and the per-transition edit API.
 
     Args:
         traces: a batched trace pytree (e.g. from ``vmap(generate)``),
@@ -233,12 +232,9 @@ def run_chains(
 ) -> MHChainResult:
     """Many independent MH chains as one vmapped program.
 
-    ``layout="lanes"`` (default) batches with the chain axis LAST so
-    per-chain event dims (often ≤16 wide) ride the sublanes and the 128
-    lanes fill with chains — measured 20× over chains-leading vmap on
-    v5e (16k chains, hierarchical regression: 3.5 → 71.9M transitions/s;
-    the VPU executes 8×128 tiles, so a leading chain axis leaves most
-    lanes idle on small models). The returned result is transposed back
+    ``layout="lanes"`` (default) batches with the chain axis LAST, so
+    per-chain event dims (often ≤16 wide) are the leading axes and the
+    chains are the contiguous one. The returned result is transposed back
     to the conventional chains-leading shape, so the API is unchanged;
     pass ``layout="batch"`` to keep the old internal layout (e.g. when a
     custom ``record`` returns values whose leading axis must be stepwise).

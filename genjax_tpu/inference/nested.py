@@ -10,7 +10,7 @@ struggles: likelihood plateaus, phase transitions (Z(beta) ladders place
 no rungs where d log Z / d beta jumps), and when the *full* Z(X) profile
 or an information estimate H is wanted.
 
-TPU-first shape discipline:
+Shape discipline:
 
 - A single run is inherently sequential (one dead point per iteration),
   so the unit of parallelism is the RUN: ``n_runs`` independent replicas

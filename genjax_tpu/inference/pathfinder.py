@@ -23,7 +23,7 @@ documented, not accidental):
 - The covariance is materialized densely (one ``(D, D)`` Cholesky per
   iterate). The paper's thin-QR factored sampler matters for D in the
   10^5+ regime; column-packed models here are D ≤ a few thousand, where
-  the dense route is faster on the MXU and exact.
+  the dense route is faster on the tensor cores and exact.
 - The L-BFGS driver is ``optax.lbfgs`` (zoom linesearch); history pairs
   are tracked in fixed-shape rolling buffers so the whole path is one
   ``lax.scan``.

@@ -13,7 +13,7 @@ every resampling step — plus the two classic samplers built on it:
 - ``pmmh``: particle-marginal MH — a random-walk parameter chain accepted
   on the particle filter's unbiased marginal-likelihood estimate.
 
-TPU-first notes: one sweep is a single ``lax.scan`` over time with all K
+Design notes: one sweep is a single ``lax.scan`` over time with all K
 particles vmapped per step; a whole Gibbs run is one jitted
 ``lax.scan``-of-sweeps (no host round trips). Ancestor bookkeeping is
 O(T·K) int32; the backward path trace is a reverse ``lax.scan``.

@@ -6,7 +6,7 @@ closes the practitioner loop: ``sample_posterior`` (or any dict of draws)
 → ``posterior_predictive`` → predictive arrays for unconstrained
 addresses.
 
-TPU-first notes: one vmapped ``generate`` over the draw batch — a single
+Design notes: one vmapped ``generate`` over the draw batch — a single
 compiled program; the draw axis is a leading batch axis that shards over
 a mesh like any other chain/particle axis.
 """

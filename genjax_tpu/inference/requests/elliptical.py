@@ -19,7 +19,7 @@ structure (scan/vmap/switch) — the only user obligation is that ``mean``/
 ``chol`` really are the prior over that ravel (matching the model), which
 cannot be checked mechanically here.
 
-TPU notes: the shrink loop is a scalar ``lax.while_loop``; under
+Notes: the shrink loop is a scalar ``lax.while_loop``; under
 ``jax.vmap`` over chains JAX batches it into the same lock-step masked
 loop the column kernel uses.
 """

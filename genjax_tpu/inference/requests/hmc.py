@@ -5,7 +5,7 @@ hmc.py`` (223 LoC) — ``selection_gradient`` :70 (grad/nongrad pytree unzip
 :49-65), ``HMC`` :139 (leapfrog in ``lax.scan`` :170-194, α accept-ratio as
 weight :198-203), ``SafeHMC`` :214.
 
-TPU-first notes: the whole trajectory is one ``lax.scan``; position updates
+Design notes: the whole trajectory is one ``lax.scan``; position updates
 are ``Update`` edits of the trace, so arbitrary models (scan/vmap/static)
 compose. Gradients flow through ``assess`` — pure XLA, vmappable over
 thousands of chains.
@@ -155,7 +155,7 @@ def SafeHMC(selection: Selection, eps, L: int = 10) -> DiffAnnotate:
 
 def mh_accept(key: PRNGKey, trace: Trace, new_trace: Trace, alpha: Weight):
     """Metropolis-Hastings accept step over an edit's α weight: returns the
-    accepted trace and the accept flag. TPU-friendly: one ``tree_map`` of
+    accepted trace and the accept flag. Batch-friendly: one ``tree_map`` of
     selects, vmappable over chains.
 
     Robust to callee-identity churn: a model whose body constructs local

@@ -7,13 +7,12 @@ size (and diagonal mass) during warmup, draw thinned samples, and report
 split-R̂ / ESS per parameter — all as a handful of compiled programs whose
 chain axis shards over a ``Mesh`` for multi-chip runs.
 
-TPU-first structure: chains batch with the chain axis on the LANES
-(last axis internally — 20× over chains-leading vmap on small models,
-see ``inference.mcmc.run_chains``), restored to the conventional
+Structure: chains batch with the chain axis LAST internally (see
+``inference.mcmc.run_chains``), restored to the conventional
 chains-leading shape on the outputs; warmup is one ``lax.scan`` of
 windows (``inference.adaptation``); sampling is one ``lax.scan`` of
 transitions recording the selected choices; diagnostics are cross-chain
-reductions (ICI collectives when sharded).
+reductions (collectives when sharded).
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ from ..core.typing_ import PRNGKey
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.selection import Selection
-from .adaptation import cross_chain_inv_mass, multiplicative_nudge
+from .adaptation import adapt_window
 from .diagnostics import ess, split_rhat
 
 
@@ -133,9 +132,9 @@ def sample_posterior(
     momenta (the ``run_chains_hmc`` pattern: the density is still the
     GFI's own ``assess`` over each chain's frozen complement, so
     indexed selections and per-chain constraints work), and traces are
-    rebuilt once per segment. Measured within ~3.5% of the hand-packed
-    column kernel at 64k chains vs 2.6× for the per-transition ``"hmc"``
-    path (ARCHITECTURE §GFI-abstraction tax). Divergences surface as
+    rebuilt once per segment (``bench.py gfi`` compares it with the
+    hand-packed column kernel and the per-transition ``"hmc"`` path).
+    Divergences surface as
     rejections (``divergence_rate`` is 0 by construction). Supports
     ``checkpoint_dir`` resume like ``"hmc"``.
 
@@ -279,9 +278,8 @@ def sample_posterior(
 
     @jax.jit
     def warm(init_keys, k_warm):
-        # chains-on-lanes internal layout: the chain axis batches LAST so
-        # small per-chain event dims ride sublanes and the 128 lanes fill
-        # with chains (20x on v5e vs chains-leading; see inference.mcmc)
+        # chains-last internal layout: the chain axis batches LAST (see
+        # inference.mcmc.run_chains)
         traces = jax.vmap(
             lambda k: model.generate(k, constraint, args)[0], out_axes=-1
         )(init_keys)
@@ -313,11 +311,11 @@ def sample_posterior(
                 traces, accs = lax.scan(
                     step, traces, jr.split(wkeys[wi], steps_this_window)
                 )
-                eps = multiplicative_nudge(
-                    eps, jnp.mean(accs), target_accept=target_accept
-                )
                 positions = jax.vmap(ravel_selected, in_axes=-1)(traces)
-                inv_mass = cross_chain_inv_mass(positions, chain_axis=0)
+                eps, inv_mass = adapt_window(
+                    eps, inv_mass, jnp.mean(accs), positions,
+                    target_accept=target_accept, chain_axis=0,
+                )
         return traces, eps, inv_mass
 
     # ---- the "hmc_sweep" batch-first pair: same signatures as
@@ -349,11 +347,8 @@ def sample_posterior(
                     ld, z, seed_w + wi, n_steps=steps_this_window,
                     eps=eps, L=L, inv_mass=inv_mass,
                 )
-                eps = multiplicative_nudge(
-                    eps, acc, target_accept=target_accept
-                )
-                inv_mass = cross_chain_inv_mass(
-                    jnp.transpose(z), chain_axis=0
+                eps, inv_mass = adapt_window(
+                    eps, inv_mass, acc, z, target_accept=target_accept,
                 )
         traces = write_back(z, jr.fold_in(k_warm, 9))
         return traces, eps, inv_mass
@@ -822,7 +817,7 @@ def _sample_posterior_dense(
     n_steps = n_samples * thin
     # eps/cov_chol ride as traced jit ARGUMENTS: re-running the driver
     # with a different adapted eps hits the compile cache instead of
-    # paying a remote recompile per call
+    # recompiling per call
     q, accept, draws_all = jax.jit(
         lambda q0, k, cov_chol, eps: hmc_sweep_dense_cols(
             ld, q0, k, n_steps=n_steps, eps=eps, L=L,
@@ -880,10 +875,9 @@ def _sample_posterior_dense_nuts(
     # seed ints for the white-space NUTS streams, derived from the
     # caller's key and passed as TRACED jit arguments (with cov_chol) so
     # repeat driver calls hit the compile cache instead of re-baking the
-    # adapted metric/seed as program constants (10s-400s remote compile
-    # each, CLAUDE.md). seed_w stays in a bounded range because the
-    # warmup stream constant is (seed_w+1)*1_000_003 in int32; 2**11 is
-    # the widest power of two that keeps it < 2**31.
+    # adapted metric/seed as program constants. seed_w stays in a bounded
+    # range because the warmup stream constant is (seed_w+1)*1_000_003 in
+    # int32; 2**11 is the widest power of two that keeps it < 2**31.
     seed_w = jr.randint(jr.fold_in(k_warm, 7), (), 0, 2**11)
     seed_r = jr.randint(jr.fold_in(k_run, 7), (), 0, 2**30)
     n_steps = n_samples * thin

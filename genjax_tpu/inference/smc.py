@@ -7,7 +7,7 @@ Parity: reference ``/root/reference/src/genjax/_src/inference/smc.py``
 :317-351), ``ChangeTarget`` :360 (reweighting :370-425,
 ``run_csmc_for_normalizing_constant`` :432).
 
-TPU-first notes: a ``ParticleCollection`` is a single pytree whose leaves
+Design notes: a ``ParticleCollection`` is a single pytree whose leaves
 carry the particle axis in front — ready to shard over a device mesh (see
 ``genjax_tpu.parallel`` for the collective-resampling runtime). All particle
 math here is ``jax.vmap``; the multi-chip story wraps it in ``shard_map``.

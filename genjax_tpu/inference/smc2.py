@@ -11,7 +11,7 @@ exchange move (a fresh full-history particle filter per proposal — the
 Andrieu-Doucet-Holenstein acceptance keeps the θ-posterior exact at every
 time despite the evidence being estimated).
 
-TPU structure: everything is ONE jitted scan over time. θ-particles and
+Structure: everything is ONE jitted scan over time. θ-particles and
 their inner state particles are dense (N_θ,) / (N_θ, N_x) leading axes —
 two nested vmaps over the same ``kernel.generate`` the single-θ particle
 filter uses (`parallel/smc.py`). The rejuvenation's from-scratch filter is

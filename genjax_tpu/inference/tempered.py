@@ -8,7 +8,7 @@ but as a complete driver the reference lacks: the whole ladder is one
 times the log-likelihood; rejuvenation is any edit request applied per
 particle.
 
-TPU-first: particles are a vmapped batch (shard the axis for multi-chip);
+Batching: particles are a vmapped batch (shard the axis for multi-chip);
 resampling uses the gather-free counts+repeat path.
 """
 
@@ -97,7 +97,7 @@ def tempered_smc(
 
     # initialize at beta = 0: particles from the prior, llh recorded.
     # Particle axis on the LANES (last axis) for the model-evaluation work
-    # (see ARCHITECTURE §2: small per-particle event dims waste VPU lanes
+    # (see ARCHITECTURE §2: small per-particle event dims waste lanes
     # behind a leading batch axis); resampling transposes to rows, where
     # contiguous movement is fast, and back.
     init_keys = jr.split(init_key, k)

@@ -18,7 +18,7 @@ The massive-chain regime makes the dense metric nearly free:
 * **Application** — the ideal kinetic energy uses M = Σ⁻¹ (posterior
   precision), so each leapfrog needs ``Σ @ p`` and each momentum
   refresh ``L⁻ᵀ z`` (Σ = L Lᵀ). Both are ``(D, D) @ (D, N)`` matmuls —
-  MXU-resident at any chain count, amortized over the N lanes.
+  matmul-bound at any chain count, amortized over the N lanes.
 
 Conventions: ``cov_chol`` is the lower Cholesky factor L of the
 ESTIMATED POSTERIOR COVARIANCE Σ. Momenta are drawn p ~ N(0, Σ⁻¹) via
@@ -90,7 +90,7 @@ def hmc_sweep_dense_cols(
     sigma = cov_chol @ cov_chol.T
     # momentum factor: p = Lm @ z with Lm = L^{-T}  =>  cov(p) = Σ^{-1}.
     # Materialized once per sweep (one D x D triangular solve) so every
-    # refresh is a plain MXU matmul instead of a per-step solve.
+    # refresh is a plain matmul instead of a per-step solve.
     mom_factor = jax.scipy.linalg.solve_triangular(
         cov_chol.T, jnp.eye(d, dtype=jnp.float32), lower=False
     )
@@ -173,7 +173,7 @@ def warmup_column_dense(
     Returns ``(q, eps, cov_chol)`` ready for
     :func:`hmc_sweep_dense_cols`.
     """
-    from .adaptation import multiplicative_nudge
+    from .adaptation import multiplicative_nudge, rescale_for_metric
 
     d, _ = q0.shape
     q0 = q0.astype(jnp.float32)
@@ -198,6 +198,10 @@ def warmup_column_dense(
             1.0 - (idx + 1.0) / n_phases
         )
         cov = cross_chain_cov(q, shrinkage=lam)
+        # carry eps across a large change of the metric's scale
+        eps = rescale_for_metric(
+            eps, jnp.sum(cov_chol**2, axis=1), jnp.diag(cov)
+        )
         cov_chol = jnp.linalg.cholesky(cov)
         return (q, eps, cov_chol), acc
 
@@ -221,7 +225,7 @@ def whiten_logdensity(logdensity_cols: Callable, cov_chol, mean=0.0):
     ½ pᵀ Σ p (the constant Jacobian |L| shifts the log-density by a
     constant, which MCMC ignores) — but it works with the IDENTITY
     metric, so NUTS (whose U-turn criterion has no dense-metric form
-    here), ChEES, parallel tempering, and the Pallas kernel all gain
+    here), ChEES, parallel tempering, and column HMC all gain
     full-covariance preconditioning unchanged.
 
     Returns ``(white_ld, whiten, unwhiten)``:

@@ -14,7 +14,7 @@ prior sample, then shrinks an angle bracket until the likelihood threshold
 is met. It is the standard production sampler for GP latents
 (`models/gp.py` provides the Gram/Cholesky machinery).
 
-TPU batching: positions are chains-on-lanes ``(D, N)``. All chains run the
+Batching: positions are chains-on-lanes ``(D, N)``. All chains run the
 shrink loop in ONE ``lax.while_loop`` with a per-chain done mask — finished
 chains idle (their state is frozen by ``jnp.where``) until the slowest
 chain accepts. The expected iteration count is small and dimension-free
@@ -32,6 +32,13 @@ import jax.random as jr
 from jax import lax
 
 _TWO_PI = 6.283185307179586
+
+
+def _prior_draw(chol, z):
+    """``chol @ z`` at full float32 precision: at the default precision a
+    GPU may run it in TF32, which draws the ellipse from a perturbed
+    prior."""
+    return jnp.dot(chol, z, precision=lax.Precision.HIGHEST)
 
 
 def ess_transition_cols(
@@ -69,7 +76,7 @@ def ess_transition_cols(
     z = jr.normal(k_nu, (d, n), q.dtype)
     chol_prior = jnp.asarray(chol_prior, q.dtype)
     if chol_prior.ndim == 2:
-        nu = chol_prior @ z
+        nu = _prior_draw(chol_prior, z)
     else:
         nu = chol_prior.reshape(-1, 1) * z if chol_prior.ndim == 1 else chol_prior * z
 
@@ -148,10 +155,10 @@ def ess_sweep_cols(
     Returns ``(q_final, draws)`` with ``draws`` of shape
     ``(n_steps, D, N)`` when ``collect`` else ``None``.
 
-    ``rng_impl="rbg"`` switches the PRNG to RngBitGenerator — measured
-    ~1.3x on the bulk ``(D, N)`` ellipse draws that dominate the
-    transition (same tradeoff as ``kernels.chees``; threefry default
-    keeps cross-impl reproducibility)."""
+    ``rng_impl="rbg"`` switches the PRNG to RngBitGenerator for the bulk
+    ``(D, N)`` ellipse draws that dominate the transition (same tradeoff
+    as ``kernels.chees``; the threefry default keeps cross-impl
+    reproducibility)."""
     q0 = jnp.asarray(q0, jnp.float32)
     root = (
         jr.key(seed ^ 0xE5517, impl=rng_impl)
@@ -227,7 +234,7 @@ def ess_transition_gauss_cols(
     z = jr.normal(k_nu, (d, n), q.dtype)
     chol_prior = jnp.asarray(chol_prior, q.dtype)
     if chol_prior.ndim == 2:
-        nu = chol_prior @ z
+        nu = _prior_draw(chol_prior, z)
     else:
         nu = (
             chol_prior.reshape(-1, 1) * z
@@ -312,7 +319,7 @@ def ess_sweep_gauss_cols(
     (the fast path of :func:`ess_sweep_cols`; same key discipline, so the
     two produce the same chains for the matching likelihood — with the
     default PRNG; ``rng_impl="rbg"`` trades that reproducibility for
-    ~1.3x faster bulk draws)."""
+    RngBitGenerator bulk draws)."""
     q0 = jnp.asarray(q0, jnp.float32)
     root = (
         jr.key(seed ^ 0xE5517, impl=rng_impl)
@@ -334,254 +341,3 @@ def ess_sweep_gauss_cols(
 
     q, draws = lax.scan(step, q0, jnp.arange(n_steps))
     return q, draws
-
-
-# ----------------------------------------------------------------------
-# Pallas VMEM-fused Gaussian-ESS kernel
-# ----------------------------------------------------------------------
-#
-# The XLA fast path above still round-trips the ellipse draw through HBM
-# every transition: z is materialized, read by the chol matmul, nu is
-# materialized, read by the coefficient pass and the final update —
-# ~32 MB of the measured 77 MB/transition at D=256 x 8192 chains. The
-# Mosaic kernel keeps z, nu, and the six coefficient rows VMEM-resident
-# for a whole sweep: HBM traffic collapses to reading/writing the chain
-# block once. Same sampler; its own in-kernel PRNG stream (so chains are
-# NOT bit-identical to the XLA path — validated statistically, like the
-# pallas HMC kernel).
-
-import functools as _functools
-
-import jax  # noqa: E402
-from jax.experimental import pallas as pl  # noqa: E402
-
-try:  # pallas TPU backend is unavailable on CPU builds
-    from jax.experimental.pallas import tpu as pltpu
-except ImportError:  # pragma: no cover
-    pltpu = None
-
-
-def _ess_gauss_kernel(
-    seed_ref,
-    q_ref,
-    chol_ref,
-    y_ref,
-    prec_ref,
-    mean_ref,
-    out_ref,
-    *,
-    n_steps: int,
-    max_iters: int,
-    hw_rng: bool,
-):
-    from .hmc import (
-        _hw_rand_bits,
-        _normal,
-        _sw_rand_bits_factory,
-        _uniform_01,
-    )
-
-    if hw_rng:
-        pltpu.prng_seed(
-            seed_ref[0] + pl.program_id(0) * jnp.int32(0x3504F333)
-        )
-        rand_bits = _hw_rand_bits
-    else:
-        rand_bits = _sw_rand_bits_factory(
-            seed_ref[0] + pl.program_id(0) * jnp.int32(0x3504F333)
-        )
-
-    q0 = q_ref[:]  # (D, NB)
-    d, nb = q0.shape
-    chol = chol_ref[:]  # (D, D)
-    y = y_ref[:]  # (D, 1)
-    prec = prec_ref[:]
-    mean = mean_ref[:]
-    r0 = mean - y
-    f_coef = jnp.sum(prec * r0 * r0)
-    salt_stride = 8 + max_iters
-
-    def step(i, q):
-        salt = i * salt_stride
-        z = _normal(rand_bits, (d, nb), salt)
-        nu = jnp.dot(chol, z, preferred_element_type=jnp.float32)
-        c = q - mean
-        a_c = jnp.sum(prec * c * c, axis=0, keepdims=True)  # (1, NB)
-        b_c = jnp.sum(prec * nu * nu, axis=0, keepdims=True)
-        cc = jnp.sum(prec * c * nu, axis=0, keepdims=True)
-        dc = jnp.sum(prec * c * r0, axis=0, keepdims=True)
-        e_c = jnp.sum(prec * nu * r0, axis=0, keepdims=True)
-
-        def ll_theta(theta):
-            ct, st = jnp.cos(theta), jnp.sin(theta)
-            return -0.5 * (
-                a_c * ct * ct
-                + b_c * st * st
-                + 2.0 * cc * ct * st
-                + 2.0 * dc * ct
-                + 2.0 * e_c * st
-                + f_coef
-            )
-
-        u = _uniform_01(rand_bits, (1, nb), salt + 4)
-        log_y = -0.5 * (a_c + 2.0 * dc + f_coef) + jnp.log(u)
-        theta0 = _uniform_01(rand_bits, (1, nb), salt + 5) * _TWO_PI
-        # ALL shrink uniforms in one bulk draw (the per-iteration PRNG
-        # call latency dominated the fixed loop at small row shapes)
-        u_all = _uniform_01(rand_bits, (max_iters, nb), salt + 6)
-        # done carried as an f32 0/1 mask: Mosaic loop carries must be
-        # vector-register types (i1 rows fail to legalize)
-        done0 = (ll_theta(theta0) > log_y).astype(jnp.float32)
-
-        # STATICALLY-UNROLLED shrink loop (Mosaic legalizes neither a
-        # dynamic while_loop nor value dynamic_slice in-kernel; max_iters
-        # is a Python constant, and each unrolled iteration is a handful
-        # of (1, NB) VPU row ops with a static row of the bulk uniform
-        # draw — negligible next to the (D, NB) matmul)
-        lo, hi = theta0 - _TWO_PI, theta0
-        th = theta0
-        th_acc = theta0
-        done = done0
-        for j in range(max_iters):
-            is_done = done > 0.5
-            keep = jnp.logical_or(is_done, th >= 0)
-            lo = jnp.where(keep, lo, th)
-            hi = jnp.where(keep, th, hi)
-            u_j = u_all[j : j + 1, :]
-            th_new = lo + (hi - lo) * u_j
-            th = jnp.where(is_done, th, th_new)
-            ok = ll_theta(th) > log_y
-            acc_now = jnp.logical_and(~is_done, ok)
-            th_acc = jnp.where(acc_now, th, th_acc)
-            done = jnp.maximum(done, ok.astype(jnp.float32))
-        q_new = mean + c * jnp.cos(th_acc) + nu * jnp.sin(th_acc)
-        return jnp.where(done > 0.5, q_new, q)
-
-    out_ref[:] = lax.fori_loop(0, n_steps, step, q0)
-
-
-def ess_sweep_gauss_pallas(
-    q0,
-    seed: int,
-    *,
-    n_steps: int,
-    chol_prior,
-    y,
-    prec=1.0,
-    mean=0.0,
-    max_iters: int = 24,
-    block_n: int | None = None,
-    interpret: bool = False,
-):
-    """:func:`ess_sweep_gauss_cols` as a VMEM-resident Mosaic kernel.
-
-    The ellipse draw, its chol matmul, the six coefficient rows, and the
-    shrink loop all stay in VMEM for the whole sweep — per sweep the
-    chain block touches HBM exactly twice (read q0, write q). In-kernel
-    PRNG (hardware on TPU, the counter-based software generator under
-    ``interpret=True`` for CI), so draws are not bit-identical to the
-    XLA path; validated against the same conjugate closed forms.
-
-    Mosaic constraints shape the kernel: no dynamic while_loop and no
-    value dynamic_slice lower in-kernel, so the shrink loop is STATICALLY
-    UNROLLED to ``max_iters`` predicated iterations (the XLA path's
-    while_loop exits at the realized per-transition max instead). The
-    default cap 24 covers the observed shrink tail (max 21 over 8192
-    chains on the GP bench target, mean ~6); capped chains keep their
-    point (exact no-op, as in the XLA path's cap 64).
-
-    Measured (v5e, D=256 x 8192 chains, 50-step sweeps, >=2 s windows):
-    61M transitions/s at the default cap vs the XLA fast path's 58M
-    (1.05x); 70M (1.20x) at cap 16, which truncates ~1% of shrinks.
-    The modest margin over XLA despite eliminating ~30 of its 77
-    MB/transition of HBM traffic shows the workload is compute-side of
-    its nominal bytes-accessed roofline — the same overcount the bench's
-    roofline lines flag (ARCHITECTURE §Performance measurement).
-
-    Returns ``q`` of shape ``(D, N)``.
-    """
-    q0 = jnp.asarray(q0, jnp.float32)
-    d, n = q0.shape
-    chol_prior = jnp.asarray(chol_prior, jnp.float32)
-    if chol_prior.ndim < 2:
-        # scalar or (D,) std-devs -> diagonal factor
-        chol_prior = (
-            jnp.reshape(chol_prior, (-1, 1))
-            if chol_prior.ndim == 1
-            else jnp.full((d, 1), chol_prior, jnp.float32)
-        ) * jnp.eye(d, dtype=jnp.float32)
-    y = jnp.asarray(y, jnp.float32).reshape(d, 1)
-    prec = jnp.broadcast_to(
-        jnp.asarray(prec, jnp.float32).reshape(-1, 1), (d, 1)
-    )
-    mean = jnp.broadcast_to(
-        jnp.asarray(mean, jnp.float32).reshape(-1, 1)
-        if jnp.ndim(mean) > 0
-        else jnp.full((d, 1), mean, jnp.float32),
-        (d, 1),
-    )
-
-    if block_n is None:
-        # VMEM budget: ~6 live (D, NB) f32 buffers + the (D, D) factor
-        budget = 8 * 1024 * 1024
-        block_n = min(2048, n, max(128, budget // (6 * 4 * max(d, 1))))
-        block_n = max(128, (block_n // 128) * 128)
-        block_n = min(block_n, n)
-        while n % block_n and block_n > 128:
-            block_n -= 128
-    if n % block_n:
-        raise ValueError(
-            f"n_chains={n} must be divisible by block_n={block_n} "
-            "(pad the chain count or pass block_n explicitly)"
-        )
-    grid = (n // block_n,)
-
-    kernel = _functools.partial(
-        _ess_gauss_kernel,
-        n_steps=n_steps,
-        max_iters=max_iters,
-        hw_rng=not interpret,
-    )
-    compiler_params = None
-    if not interpret:
-        compiler_params = pltpu.CompilerParams(
-            dimension_semantics=("parallel",)
-        )
-
-    def col_spec(shape):
-        nd = len(shape)
-        return pl.BlockSpec(
-            shape, lambda i, _nd=nd: (0,) * _nd, memory_space=pltpu.VMEM
-        )
-
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        compiler_params=compiler_params,
-        in_specs=[
-            pl.BlockSpec(
-                memory_space=pltpu.SMEM,
-                index_map=lambda i: (0,),
-                block_shape=(1,),
-            ),
-            pl.BlockSpec(
-                (d, block_n), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-            col_spec((d, d)),
-            col_spec((d, 1)),
-            col_spec((d, 1)),
-            col_spec((d, 1)),
-        ],
-        out_specs=pl.BlockSpec(
-            (d, block_n), lambda i: (0, i), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((d, n), jnp.float32),
-        interpret=interpret,
-    )(
-        jnp.asarray([seed], jnp.int32),
-        q0,
-        chol_prior,
-        y,
-        prec,
-        mean,
-    )

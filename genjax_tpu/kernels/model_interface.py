@@ -2,16 +2,15 @@
 
 ``column_hmc`` extracts a flat log-density from a model + constraint over a
 set of continuous addresses, initializes chains from the prior, and runs the
-VMEM-resident Pallas HMC sweep (``kernels.hmc``) — same model code as the
-trace-based drivers, ~50× the throughput at small model sizes (measured
-v5e, 64k chains: 34.9M transitions/s trace-based vs ~1.7B column-layout).
+column HMC sweep (``kernels.hmc``) — same model code as the trace-based
+drivers, with the whole sweep compiled as one program over all chains.
 
-Positions are packed **chains-on-lanes**: ``(D, N)`` with ``D`` the total
-flattened dimension of the selected addresses padded to the fp32 sublane
-tile (8). Padding dimensions carry an independent STANDARD-NORMAL density
-(see ``column_logdensity``): flat padding directions random-walk, explode
-the cross-chain mass estimate, and never U-turn — do not "simplify" them
-back to zero density (that cost 7× NUTS throughput).
+Positions are packed **chains-last**: ``(D, N)`` with ``D`` the total
+flattened dimension of the selected addresses padded to a multiple of 8.
+Padding dimensions carry an independent STANDARD-NORMAL density (see
+``column_logdensity``): flat padding directions random-walk, explode the
+cross-chain mass estimate, and never U-turn — do not "simplify" them back
+to zero density (that pinned NUTS trajectories at the depth budget).
 """
 
 from __future__ import annotations
@@ -86,7 +85,7 @@ class ColumnPacker:
 
 def column_logdensity(model, constraint, args, packer: ColumnPacker):
     """The model's log-joint as a batched column function
-    ``(D, NB) -> (NB,)`` in pure jnp (traceable inside a Pallas kernel).
+    ``(D, N) -> (N,)`` in pure jnp.
 
     The tile-padding dimensions (``packer.dim .. padded_dim``) carry an
     independent standard-normal density. Leaving them FLAT breaks every
@@ -120,9 +119,6 @@ def column_hmc(
     eps: float,
     L: int = 5,
     seed: int = 0,
-    block_n: int | None = None,
-    interpret: bool = False,
-    backend: str = "auto",
     warmup: bool = False,
     inv_mass=None,
     mass: str = "diag",
@@ -139,11 +135,6 @@ def column_hmc(
     (``kernels.dense_mass.warmup_column_dense``) and runs the dense-metric
     sweep — the right tool for correlated posteriors, where a diagonal
     metric caps the step size at the smallest conditional scale.
-
-    ``backend="auto"`` (default) stages the model's column log-density and
-    picks from its jaxpr: matmul/conv ops or packed dim > 16 → the XLA
-    scan sweep, small purely elementwise bodies on a TPU → the
-    VMEM-resident Pallas kernel (``kernels.hmc.select_hmc_backend``).
 
     >>> import jax
     >>> import jax.numpy as jnp
@@ -189,8 +180,6 @@ def column_hmc(
                 "mass='dense' adapts its own full-covariance metric; "
                 "inv_mass (a diagonal) cannot be combined with it"
             )
-        # NOTE: the dense sweep always runs the XLA scan path — backend/
-        # block_n/interpret are Pallas-kernel knobs and do not apply here.
         from .dense_mass import hmc_sweep_dense_cols, warmup_column_dense
 
         q0, eps_d, cov_chol = warmup_column_dense(
@@ -200,7 +189,7 @@ def column_hmc(
         # is identical across calls with different adapted values — the
         # in-process jit cache still misses (the lambda is fresh per
         # call), but the persistent compilation cache dedupes the
-        # identical HLO, skipping the 10s-400s remote recompile
+        # identical HLO
         q, accept = jax.jit(
             lambda q0, cov_chol, eps_d: hmc_sweep_dense_cols(
                 logdensity_cols, q0, seed, n_steps=n_steps,
@@ -221,9 +210,6 @@ def column_hmc(
         n_steps=n_steps,
         eps=eps,
         L=L,
-        block_n=block_n,
-        interpret=interpret,
-        backend=backend,
         inv_mass=inv_mass,
     )
     return q, accept, packer

@@ -313,7 +313,7 @@ def nuts_transition_cols(
 ):
     """One NUTS transition over an EXPLICIT ``(D, N)`` chain batch.
 
-    The TPU-native twin of ``nuts_transition``: instead of vmapping the
+    The batched twin of ``nuts_transition``: instead of vmapping the
     single-chain transition, the batch axis is threaded through every
     state array so the loop *conditions stay scalar* — ``while`` loops
     exit collectively when every chain has U-turned/diverged
@@ -619,8 +619,8 @@ def nuts_sweep_cols(
 ):
     """``n_steps`` NUTS transitions over ``(D, N)`` column-layout chains as
     one jitted scan (shard the chain axis for multi-chip). ``rng_impl``
-    defaults to the TPU-native ``"rbg"`` bit generator (see
-    ``hmc._reference_hmc``). ``batched=True`` (default) runs the
+    defaults to the ``"rbg"`` bit generator for the bulk ``(D, N)`` draws
+    (see ``hmc._reference_hmc``). ``batched=True`` (default) runs the
     explicitly batched ``nuts_transition_cols`` — scalar loop conditions,
     collective early exit, bulk ``(D, N)`` PRNG draws; ``batched=False``
     vmaps the single-chain ``nuts_transition`` (fixed ``2^max_depth`` leaf

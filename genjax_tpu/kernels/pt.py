@@ -13,17 +13,17 @@ its temperature machinery is SMC-side, cf. our ``inference/tempered.py``
 which anneals a *particle population* once — this kernel keeps a
 *stationary* ladder for equilibrium MCMC).
 
-TPU-native design:
+Design:
 
 - State is ``(R, D, N)``: rungs on the sublane-major axis, chains on
   lanes. Every rung advances every chain in ONE fused HMC sweep — the
   ``R`` ladder is just another batch dimension on the ``(D, N)`` column
-  kernel (``jax.vmap`` of the log-density over rungs), so the MXU/VPU see
+  kernel (``jax.vmap`` of the log-density over rungs), so the device sees
   an ``R``-times-larger batch, not a Python loop over rungs.
 - Swaps are even-odd (deterministic-parity) adjacent exchanges
   (Okabe et al. 2001): pairs ``(r, r+1)`` with ``r ≡ sweep (mod 2)`` are
   disjoint, so the whole exchange phase is two ``jnp.roll``s (static
-  shifts — no gathers, which are element-serial on TPU) and a ``where``.
+  shifts — no gathers) and a ``where``.
   The swap acceptance reuses the *already computed* untempered
   log-densities: ``log alpha = (beta_r - beta_{r+1}) (lp_{r+1} - lp_r)``
   — zero extra density evaluations.

@@ -13,13 +13,13 @@ so the empirical measure converges to the target without any sampling
 noise — useful when a moderate number of high-quality representative
 points beats many correlated MCMC draws.
 
-TPU shape: particles are chains-on-lanes ``(D, N)``; one update is an
-``(N, N)`` RBF Gram matrix plus two matmuls against it — MXU-resident —
+Shape: particles are chains-on-lanes ``(D, N)``; one update is an
+``(N, N)`` RBF Gram matrix plus two matmuls against it — matmul-bound —
 and the gradient batch is one ``jax.vjp`` of the standard column
 log-density, so sharded (``data_sharded_logdensity``) targets drop in.
 
 Bandwidth heuristic cost: an exact ``jnp.median`` over the full N×N Gram
-is an O(N² log N) sort per step that swamps the two MXU matmuls at
+is an O(N² log N) sort per step that swamps the two matmuls at
 N=4096 (16.7M-element sort). The flow only needs a *scale*, so the
 median is estimated from a k×N row slice of the distance matrix
 (particles are exchangeable — any k rows are an unbiased sample of the

@@ -10,7 +10,7 @@ sub-requests via ``StaticRequest`` :130), ``RegenerateRequestHandler`` :616,
 :81 (score = sum of subscores :102), ``gen`` decorator :1044, method support
 :757, ``partial_apply`` :1011, ``AddressReuse`` :139.
 
-TPU-native redesign: instead of staging the model to a Jaxpr and
+Redesign: instead of staging the model to a Jaxpr and
 re-interpreting ``trace_p`` equations, each GFI method executes the Python
 body under a handler installed on a dynamic handler stack
 (``genjax_tpu.core.handlers``). Under ``jit`` this produces the identical XLA

@@ -1,7 +1,7 @@
 """Gaussian-process regression (exact conjugate answers throughout).
 
 No reference counterpart (the reference ships no model zoo —
-`/root/reference/docs/cookbook/` notebooks only; SURVEY.md §1). A GP is the canonical MXU workload in a PPL: the
+`/root/reference/docs/cookbook/` notebooks only; SURVEY.md §1). A GP is the canonical matmul workload in a PPL: the
 kernel Gram matrix, its Cholesky factor, and the triangular solves are all
 dense (N, N) linear algebra that XLA tiles straight onto the systolic
 array, and vmapping chains over hyperparameter candidates batches them.
@@ -39,7 +39,7 @@ def _as_points(x):
 def sq_exp_kernel(x1, x2, amplitude, lengthscale):
     """Squared-exponential Gram matrix between row-sets ``x1 (N, D)`` and
     ``x2 (M, D)`` (1-D inputs are treated as N scalar points) — one matmul
-    for the cross terms (MXU) plus rank-1 corrections."""
+    for the cross terms (a matmul) plus rank-1 corrections."""
     x1 = _as_points(x1)
     x2 = _as_points(x2)
     sq1 = jnp.sum(x1**2, axis=1)[:, None]

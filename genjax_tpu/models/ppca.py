@@ -13,9 +13,9 @@ exact M-steps — which makes it the strongest possible testbed for the
 framework's gradient samplers and VI on a multivariate latent model: every
 approximate answer can be judged against the spectral solution.
 
-TPU notes: the ML path is one (d, d) eigendecomposition plus matmuls; the
+Notes: the ML path is one (d, d) eigendecomposition plus matmuls; the
 batched log-likelihood evaluates the marginal MVN density with one shared
-Cholesky across the data batch (MXU-resident for large d).
+Cholesky across the data batch (matmul-bound for large d).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""TPU scale-out runtime: device meshes, sharded particle/chain batches,
+"""Scale-out runtime: device meshes, sharded particle/chain batches,
 collective resampling, multi-chip SMC and MCMC drivers.
 
 This layer has **no reference counterpart** — the reference is single-process
 ``jax.vmap`` only (SURVEY.md §2 parallelism inventory: no pmap/pjit/
 shard_map/collectives anywhere in its source). It is the accelerator-scale
 execution story required by BASELINE.json's north star: chains/particles
-sharded over ICI with XLA collectives for log-weight normalization,
+sharded over a mesh with XLA collectives for log-weight normalization,
 systematic resampling, and cross-chain adaptation.
 """
 

@@ -1,7 +1,7 @@
 """Static collective audit of compiled HLO.
 
 No reference counterpart (the reference is single-device; `/root/reference
-/src/genjax` contains no collectives to audit). This is TPU-layer tooling:
+/src/genjax` contains no collectives to audit). This is scale-out tooling:
 given a compiled program's HLO text, report every collective op — kind,
 payload bytes, whether it executes per loop step (``lax.scan`` compiles to
 a ``while`` whose body runs once per step) and how many devices its

@@ -10,20 +10,17 @@ models are large"). A factorized posterior
 
 has its FLOPs in the likelihood sum, which is embarrassingly parallel over
 data. This module keeps the dataset resident shard-by-shard across a mesh
-axis and evaluates the sum with one ``lax.psum`` over ICI — no device ever
+axis and evaluates the sum with one ``lax.psum`` — no device ever
 materializes the full dataset, and the gradient (``jax.vjp`` through
 ``shard_map``/``psum``) is likewise computed shard-locally.
 
 The result is a standard column log-density ``(D, N) -> (N,)`` — it drops
-straight into ``pallas_hmc(backend="xla")`` / ``nuts_sweep_cols`` /
-``chees_hmc`` (``kernels/``), whose only contract is that ``jax.vjp``
-works. The Pallas
-backend stages the log-density into an in-kernel jaxpr and cannot contain
-collectives: use ``backend="xla"`` with data sharding.
+straight into ``pallas_hmc`` / ``nuts_sweep_cols`` / ``chees_hmc``
+(``kernels/``), whose only contract is that ``jax.vjp`` works.
 
 Layout: the mesh is ``(chain_axis, data_axis)``. Positions ``(D, N)`` shard
-chains over ``chain_axis`` (lanes axis — the framework's chains-on-lanes
-doctrine) and are replicated over ``data_axis``; data leaves shard their
+chains over ``chain_axis`` (the last axis — the framework's chains-last
+layout) and are replicated over ``data_axis``; data leaves shard their
 leading axis over ``data_axis`` and are replicated over ``chain_axis``.
 Every device holds an (all-D × N/c) position block and an (M/d × ...)
 data block.

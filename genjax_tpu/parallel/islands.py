@@ -2,11 +2,11 @@
 
 No reference counterpart (the reference's SMC is single-shard ``vmap``,
 `/root/reference/src/genjax/_src/inference/smc.py:298-315`). This is the
-multi-slice scaling story for SMC on TPU pods: interconnect bandwidth is
-two-tier — ICI within a slice (fast, every-step collectives are fine) and
-DCN across slices (orders slower; traffic must be rare and scheduled).
-The island particle model (Vergé, Dubarry, Del Moral, Moulines 2015) maps
-onto that hierarchy exactly:
+multi-slice scaling story for SMC on multi-host clusters: interconnect
+bandwidth is two-tier — ICI within a slice (fast, every-step collectives are
+fine) and DCN across slices (orders slower; traffic must be rare and
+scheduled). The island particle model (Vergé, Dubarry, Del Moral, Moulines
+2015) maps onto that hierarchy exactly:
 
 * the particle population splits into **islands**, one island per
   DCN-connected slice (mesh axis ``"island"``);

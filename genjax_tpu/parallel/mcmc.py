@@ -4,7 +4,7 @@ step-size adaptation.
 No reference counterpart. Chains are embarrassingly parallel — the chain
 axis shards with one ``NamedSharding`` and XLA partitions the vmapped
 ``lax.scan`` program; cross-chain statistics (mean accept rate for dual
-averaging) compile to ICI ``psum`` automatically because they are reductions
+averaging) compile to a ``psum`` automatically because they are reductions
 over the sharded axis.
 """
 
@@ -305,7 +305,7 @@ def warmup_adapt_step_size(
 
     ``traces`` is a vmapped/sharded batch of chain states;
     ``make_request(eps)`` builds the HMC request at a step size. Under a
-    sharded chain axis the ``jnp.mean`` over chains compiles to an ICI
+    sharded chain axis the ``jnp.mean`` over chains compiles to an
     ``psum``. Returns ``(adapted_traces, eps)``.
     """
 

@@ -4,7 +4,7 @@ The framework's layout convention makes sharding trivial: every trace,
 choice map, and particle collection is a pytree whose leaves carry the
 batch (chain/particle) axis in front. Sharding a computation is therefore
 one ``NamedSharding(mesh, P("batch"))`` on the leading axis — XLA inserts
-ICI collectives for any cross-batch reduction (means, logsumexp) on its
+collectives for any cross-batch reduction (means, logsumexp) on its
 own, and ``shard_map`` is reserved for algorithms that need explicit
 per-shard logic (collective resampling).
 """

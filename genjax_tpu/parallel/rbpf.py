@@ -16,8 +16,8 @@ update, so the logZ estimator's variance collapses relative to jointly
 sampling ``(u, z)`` (Rao-Blackwellization), and the latent dimension the
 particles explore shrinks to dim(u).
 
-TPU structure: the per-particle Kalman predict/update is dense (Dz, Dz)
-matmuls vmapped over particles — MXU-batched; the whole filter is one
+Structure: the per-particle Kalman predict/update is dense (Dz, Dz)
+matmuls vmapped over particles — batched matmuls; the whole filter is one
 ``lax.scan`` with the framework's counts-based systematic resampling.
 """
 

@@ -1,10 +1,10 @@
 """Resampling kernels: single-device index generators and cross-shard
 collective resampling.
 
-TPU-first design notes:
+Design notes:
 
 - Index generation (systematic/stratified/multinomial/residual) lowers to a
-  ``cumsum`` + ``searchsorted`` — a few fused VPU passes over the weight
+  ``cumsum`` + ``searchsorted`` — a few fused passes over the weight
   vector, no host logic.
 - ``collective_resample`` runs inside ``shard_map`` over the particle axis.
   Two modes trade exactness for interconnect traffic:
@@ -15,7 +15,7 @@ TPU-first design notes:
     one scalar ``psum`` (for the normalizer). This is the
     local-resampling variant of distributed particle filters.
   * ``"all_gather"`` — exact global systematic resampling: log-weights are
-    all-gathered (K floats over ICI), every shard computes the global index
+    all-gathered (K floats between devices), every shard computes the global index
     vector and gathers its slice of source particles from an all-gathered
     particle buffer. Exact but O(K·particle_size) traffic; right when the
     per-particle state is small.
@@ -47,11 +47,9 @@ def systematic_counts(key, log_weights, n: int | None = None):
     """Per-source copy counts for systematic resampling, in O(K) arithmetic
     (no binary search): target ``j`` lands on source ``i`` iff
     ``cdf_{i-1} <= (j+u0)/n < cdf_i``, so the number of targets below
-    ``cdf_i`` is ``ceil(n*cdf_i - u0)``.
-
-    TPU note (measured, v5e, K=131k): XLA's binary-search ``searchsorted``
-    costs ~37 ms and a random gather ~19 ms; the counts formulation plus a
-    monotonic ``jnp.repeat`` redistribution costs ~2.6 ms — ~20× faster.
+    ``cdf_i`` is ``ceil(n*cdf_i - u0)``. Paired with a monotonic
+    ``jnp.repeat`` redistribution it replaces the binary-search
+    ``searchsorted`` and the random gather.
     """
     k = log_weights.shape[0]
     n = k if n is None else n
@@ -67,13 +65,10 @@ def _packed_row_move(particles, k: int, total: int, move):
     """Apply a row-movement op to a particle pytree with all 4-byte leaves
     bit-packed into one (k, >=8) uint32 matrix.
 
-    TPU note (measured, v5e, K=131k): 1-D data movement is element-serial
-    (~2 ms per leaf), but ROW movement vectorizes across the minor
-    dimension — moving a (K, 8) block costs ~half of moving a (K,) vector.
-    So all 4-byte leaves are bit-packed into one (K, >=8) uint32 matrix
-    (zero-padded to 8 lanes), moved with a single row op, and unpacked
-    with slices: 1.7x faster for multi-leaf states and 1.3x even for one
-    scalar leaf. Non-4-byte leaves fall back to per-leaf moves.
+    All 4-byte leaves are bit-packed into one (K, >=8) uint32 matrix
+    (zero-padded to 8 columns), moved with a single row op, and unpacked
+    with slices, so a multi-leaf state moves in one pass. Non-4-byte
+    leaves fall back to per-leaf moves.
 
     ``move(x)`` maps a ``(k, ...)`` array to a ``(total, ...)`` array and
     must move rows identically for every leaf (a repeat-by-counts or an
@@ -119,8 +114,7 @@ def _packed_row_move(particles, k: int, total: int, move):
 def redistribute(particles, counts, n: int | None = None):
     """Copy particle ``i`` ``counts[i]`` times, contiguously — the
     redistribution step for any *monotonic* resampler (systematic,
-    stratified). Uses the bit-packed row-repeat (``_packed_row_move``);
-    measured ~20x over searchsorted+gather at K=131k on v5e.
+    stratified). Uses the bit-packed row-repeat (``_packed_row_move``).
     """
     total = int(jnp.shape(counts)[0]) if n is None else n
     k = jnp.shape(counts)[0]
@@ -211,8 +205,7 @@ def resample_indices(key, log_weights, n=None, method: str = "systematic"):
 
 def packed_take(particles, idx, k: int):
     """Row-gather a particle pytree at ``idx`` via the bit-packed row
-    movement of ``_packed_row_move`` (1-D gathers are element-serial on
-    TPU)."""
+    movement of ``_packed_row_move``."""
     total = jnp.shape(idx)[0]
     return _packed_row_move(particles, k, total, lambda v: v[idx])
 
@@ -253,7 +246,7 @@ def collective_weight_stats(log_weights, axis_name: str):
 
 def collective_log_normalizer(log_weights, axis_name: str):
     """log Σ_global exp(lw) − log K_global, stably, with one pmax and one
-    psum over ICI."""
+    psum across devices."""
     local_max = jnp.max(log_weights)
     global_max = lax.pmax(local_max, axis_name)
     local_sum = jnp.sum(jnp.exp(log_weights - global_max))

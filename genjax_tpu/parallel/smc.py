@@ -3,7 +3,7 @@ models with particles sharded across a device mesh.
 
 No reference counterpart (the reference's SMC is single-shard ``vmap``,
 smc.py:298-315) — this is the BASELINE.json north-star driver: the particle
-axis shards over ICI; per-step weighting is embarrassingly parallel; ESS,
+axis shards over the mesh; per-step weighting is embarrassingly parallel; ESS,
 log-normalizers, and resampling use XLA collectives inside one jitted
 ``shard_map`` program.
 """
@@ -150,7 +150,7 @@ class SSMParticleFilter(Pytree):
         n_steps: int | None = None,
     ) -> ParticleFilterResult:
         """The multi-chip path: one jitted ``shard_map`` program; particles
-        stay resident on their chip; ESS/normalizer/resampling are ICI
+        stay resident on their chip; ESS/normalizer/resampling are
         collectives."""
         n_shards = mesh.shape[axis]
         assert self.n_particles % n_shards == 0, (

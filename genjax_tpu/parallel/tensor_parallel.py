@@ -76,7 +76,7 @@ def tensor_parallel_logdensity(
 
     The returned function is differentiable: ``jax.vjp`` transposes the
     ``psum`` into the shard-local gradients, so it plugs directly into
-    ``pallas_hmc(backend="xla")``, ``nuts_sweep_cols`` and ``chees_hmc``.
+    ``pallas_hmc``, ``nuts_sweep_cols`` and ``chees_hmc``.
     ``D`` must be divisible by the model-axis size and ``N`` by the
     chain-axis size.
     """
@@ -164,7 +164,7 @@ def tp_bnn_logdensity(
         w1 = u[:, :d_in, :]          # (H_l, d_in, N)
         b1 = u[:, d_in, :]           # (H_l, N)
         w2 = u[:, d_in + 1, :]       # (H_l, N)
-        # one (H_l·N, d_in) @ (d_in, M) matmul — the MXU-resident op
+        # one (H_l·N, d_in) @ (d_in, M) matmul — the matmul-bound op
         pre = (
             w1.transpose(0, 2, 1).reshape(h_local * n, d_in) @ X.T
         ).reshape(h_local, n, -1)

@@ -236,7 +236,7 @@ def test_property_or_priority(left, right):
 
 def test_indexed_numpy_leaf_traced_index():
     """Dense indexed constraints built from host-numpy arrays (the
-    recommended carrier for TPU model constants) must support traced-index
+    recommended carrier for model constants) must support traced-index
     lookup — numpy leaves cannot be indexed by a tracer directly, so
     _slice_leaves converts them (regression: verify-drive find)."""
     import numpy as np

@@ -183,7 +183,7 @@ class TestChecks:
 # ---------------------------------------------------------------------
 # Reversible jump, saturated-space formulation (Brooks, Giudici &
 # Roberts 2003): every block is always sampled (fixed shapes — the
-# TPU-native representation), the likelihood selects by `k`, dormant
+# jit-native representation), the likelihood selects by `k`, dormant
 # blocks sit at their pseudo-prior. All coordinates are scored, so the
 # involutive acceptance is exact with no trans-dimensional bookkeeping.
 # ---------------------------------------------------------------------

@@ -58,7 +58,7 @@ class TestHMC:
         assert jnp.std(mus) == pytest.approx(std, abs=0.15)
 
     def test_many_chains_vmapped(self):
-        """The 'TPU shape': thousands of chains as a vmapped batch."""
+        """The batch shape: thousands of chains as a vmapped batch."""
         y_obs = 2.0
         mean, std = exact_posterior(y_obs)
         n_chains = 512

@@ -1,10 +1,5 @@
-"""Fused column-layout HMC: correctness on CPU.
-
-Both backends run in CI: ``backend="xla"`` is the plain-JAX twin, and
-``backend="pallas", interpret=True`` executes the actual Mosaic kernel body
-(``kernels/hmc.py:_hmc_kernel`` — VMEM layout, fori_loop sweep, mass-matrix
-kinetic energy) under the Pallas interpreter, with the hardware PRNG
-swapped for the counter-based software PRNG (VERDICT round-1 item 3)."""
+"""Fused column-layout HMC: correctness on CPU, through ``column_hmc`` and
+directly on the column sweep ``kernels.hmc._reference_hmc``."""
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +8,7 @@ import pytest
 
 import genjax_tpu as g
 from genjax_tpu.kernels import ColumnPacker, column_hmc, column_logdensity, pallas_hmc
+from genjax_tpu.kernels.hmc import _reference_hmc
 
 KEY = jax.random.key(0)
 
@@ -28,7 +24,7 @@ class TestColumnHMC:
         obs = g.C["y"].set(2.0)
         q, acc, packer = column_hmc(
             conjugate, obs, (), ["mu"],
-            n_chains=2048, n_steps=300, eps=0.5, L=5, backend="xla",
+            n_chains=2048, n_steps=300, eps=0.5, L=5,
         )
         mus = q[0, :]
         assert float(acc) > 0.6
@@ -48,7 +44,7 @@ class TestColumnHMC:
         obs = g.C["y"].set(jnp.asarray(y))
         q, acc, packer = column_hmc(
             vec_model, obs, (), ["w"],
-            n_chains=1024, n_steps=300, eps=0.3, L=5, backend="xla",
+            n_chains=1024, n_steps=300, eps=0.3, L=5,
         )
         # posterior per-dim precision 1 + 1/0.25 = 5; mean = 4*y_i/5
         post_mean = (y / 0.25) / 5.0
@@ -65,6 +61,17 @@ class TestColumnHMC:
         chm = packer.unpack(qv)
         assert chm["mu"] == pytest.approx(float(tr.get_choices()["mu"]))
 
+    def test_default_path_end_to_end(self):
+        """column_hmc with every option at its default recovers the
+        conjugate posterior."""
+        obs = g.C["y"].set(2.0)
+        q, acc, _packer = column_hmc(
+            conjugate, obs, (), ["mu"],
+            n_chains=1024, n_steps=200, eps=0.5, L=5,
+        )
+        assert float(acc) > 0.6
+        assert jnp.mean(q[0, :]) == pytest.approx(1.0, abs=0.15)
+
     def test_logdensity_matches_assess(self):
         obs = g.C["y"].set(2.0)
         packer = ColumnPacker(conjugate, obs, (), ["mu"])
@@ -76,54 +83,52 @@ class TestColumnHMC:
             assert scores[i] == pytest.approx(float(expected), rel=1e-5)
 
 
-class TestPallasKernelBody:
-    """Drives ``_hmc_kernel`` itself (interpret mode) — not the XLA twin."""
+class TestReferenceSweep:
+    """The column sweep itself (``kernels.hmc._reference_hmc``, which the
+    public ``pallas_hmc`` runs)."""
 
-    def test_kernel_posterior_recovery(self):
+    def test_sweep_posterior_recovery(self):
         def ld(q):
             return -0.5 * jnp.sum(q * q, axis=0)
 
         q0 = jnp.full((8, 256), 3.0, jnp.float32)
-        q, acc = pallas_hmc(
-            ld, q0, 7, n_steps=200, eps=0.5, L=5,
-            block_n=128, interpret=True, backend="pallas",
-        )
+        q, acc = _reference_hmc(ld, q0, 7, n_steps=200, eps=0.5, L=5)
         assert 0.3 < float(acc) <= 1.0
         assert jnp.mean(q) == pytest.approx(0.0, abs=0.1)
         assert jnp.std(q) == pytest.approx(1.0, abs=0.1)
 
-    def test_kernel_grid_blocks_get_distinct_streams(self):
+    def test_distinct_seeds_give_distinct_streams(self):
         def ld(q):
             return -0.5 * jnp.sum(q * q, axis=0)
 
-        q0 = jnp.zeros((8, 256), jnp.float32)
-        q, _ = pallas_hmc(
-            ld, q0, 3, n_steps=20, eps=0.5, L=3,
-            block_n=128, interpret=True, backend="pallas",
-        )
-        # the two grid blocks started identically: distinct per-block PRNG
-        # streams must decorrelate them
-        assert not jnp.allclose(q[:, :128], q[:, 128:])
+        q0 = jnp.zeros((8, 128), jnp.float32)
+        q_a, _ = _reference_hmc(ld, q0, 3, n_steps=20, eps=0.5, L=3)
+        q_b, _ = _reference_hmc(ld, q0, 4, n_steps=20, eps=0.5, L=3)
+        q_a2, _ = _reference_hmc(ld, q0, 3, n_steps=20, eps=0.5, L=3)
+        # same seed reproduces; adjacent seeds decorrelate, and so do the
+        # chains within one sweep (they started identically)
+        assert jnp.array_equal(q_a, q_a2)
+        assert not jnp.allclose(q_a, q_b)
+        assert not jnp.allclose(q_a[:, :64], q_a[:, 64:])
 
-    def test_kernel_inv_mass(self):
+    def test_sweep_inv_mass(self):
         var = jnp.array([4.0, 0.25] * 4)
 
         def ld(q):
             return -0.5 * jnp.sum(q * q / var[:, None], axis=0)
 
-        q0 = jnp.zeros((8, 256), jnp.float32)
-        q, acc = pallas_hmc(
-            ld, q0, 11, n_steps=300, eps=0.6, L=6,
-            block_n=128, interpret=True, backend="pallas", inv_mass=var,
+        q0 = jnp.zeros((8, 512), jnp.float32)
+        q, acc = _reference_hmc(
+            ld, q0, 11, n_steps=300, eps=0.6, L=6, inv_mass=var,
         )
         assert 0.3 < float(acc) <= 1.0
         assert jnp.allclose(
             jnp.std(q, axis=1), jnp.sqrt(var), rtol=0.15
         )
 
-    def test_kernel_const_hoisting(self):
-        # log-density closing over numpy constants: the const-hoisting
-        # jaxpr replay must ship them into the kernel
+    def test_captured_numpy_constants(self):
+        # a log-density closing over host-numpy constants: the sweep
+        # recovers the exact Gaussian posterior they define
         X = np.asarray([[1.0, 0.5], [0.0, 1.0]], np.float32)
         y = np.asarray([1.0, -1.0], np.float32)
 
@@ -133,33 +138,24 @@ class TestPallasKernelBody:
                 q * q, axis=0
             )
 
-        q0 = jnp.zeros((8, 128), jnp.float32)
-        q_pl, acc_pl = pallas_hmc(
-            ld, q0, 5, n_steps=150, eps=0.3, L=5,
-            block_n=128, interpret=True, backend="pallas",
+        prec = np.eye(2) + X.T.astype(np.float64) @ X
+        mean = np.linalg.solve(prec, X.T.astype(np.float64) @ y)
+        q0 = jnp.zeros((8, 512), jnp.float32)
+        q, acc = _reference_hmc(ld, q0, 5, n_steps=300, eps=0.3, L=5)
+        assert 0.3 < float(acc) <= 1.0
+        np.testing.assert_allclose(
+            np.asarray(jnp.mean(q[:2], axis=1)), mean, atol=0.1
         )
-        q_xla, _ = pallas_hmc(
-            ld, q0, 5, n_steps=150, eps=0.3, L=5, backend="xla",
-        )
-        # same posterior from both backends (different PRNG streams)
-        assert jnp.allclose(
-            jnp.mean(q_pl[:2], axis=1), jnp.mean(q_xla[:2], axis=1), atol=0.15
-        )
-        assert 0.3 < float(acc_pl) <= 1.0
 
-    def test_column_hmc_pallas_backend_with_warmup(self):
-        # ADVICE round-1 item 4: warmup=True + backend="pallas" used to be
-        # mutually exclusive (kernel rejected inv_mass); now supported
-        obs = g.C["y"].set(2.0)
-        q, acc, packer = column_hmc(
-            conjugate, obs, (), ["mu"],
-            n_chains=1024, n_steps=150, eps=0.05, L=5,
-            backend="pallas", interpret=True, block_n=256, warmup=True,
-        )
-        mus = q[0, :]
-        assert float(acc) > 0.6
-        assert jnp.mean(mus) == pytest.approx(1.0, abs=0.1)
-        assert jnp.std(mus) == pytest.approx(1.0 / np.sqrt(2.0), abs=0.1)
+    def test_public_name_runs_the_reference_sweep(self):
+        def ld(q):
+            return -0.5 * jnp.sum(q * q, axis=0)
+
+        q0 = jnp.ones((8, 64), jnp.float32)
+        q_pub, acc_pub = pallas_hmc(ld, q0, 9, n_steps=5, eps=0.4, L=3)
+        q_ref, acc_ref = _reference_hmc(ld, q0, 9, n_steps=5, eps=0.4, L=3)
+        assert jnp.array_equal(q_pub, q_ref)
+        assert float(acc_pub) == float(acc_ref)
 
 
 class TestMassAdaptation:
@@ -182,7 +178,7 @@ class TestMassAdaptation:
         ), inv_mass
         # adapted HMC recovers every scale
         q_ad, acc = pallas_hmc(
-            ld, q, 2, n_steps=150, eps=eps, L=10, backend="xla",
+            ld, q, 2, n_steps=150, eps=eps, L=10,
             inv_mass=inv_mass,
         )
         assert float(acc) > 0.8
@@ -200,8 +196,7 @@ class TestMassAdaptation:
         obs = g.C["y"].set(2.0)
         q, acc, packer = column_hmc(
             conjugate, obs, (), ["mu"],
-            n_chains=1024, n_steps=150, eps=0.05, L=5,
-            backend="xla", warmup=True,
+            n_chains=1024, n_steps=150, eps=0.05, L=5, warmup=True,
         )
         mus = q[0, :]
         assert float(acc) > 0.6
@@ -215,108 +210,10 @@ class TestEntryContracts:
         # All addresses must be packed (assess needs a full assignment).
         q, acc, packer = column_hmc(
             conjugate, None, (), ["mu", "y"],
-            n_chains=256, n_steps=100, eps=0.5, L=5, backend="xla",
+            n_chains=256, n_steps=100, eps=0.5, L=5,
         )
         mus = q[0, :]
         assert float(acc) > 0.5
         # unconstrained target = the prior N(0, 1)
         assert abs(float(jnp.mean(mus))) < 0.15
         assert float(jnp.std(mus)) == pytest.approx(1.0, abs=0.12)
-
-
-class TestBackendSelection:
-    """Data-driven "xla" vs "pallas" routing (kernels/hmc.py
-    select_hmc_backend): stage the column log-density once, inspect its
-    jaxpr for MXU ops (VERDICT r2 item 4's auto-selection)."""
-
-    def test_mxu_detector_elementwise_vs_matmul(self):
-        from genjax_tpu.kernels.hmc import _jaxpr_has_mxu_ops
-
-        spec = jax.ShapeDtypeStruct((4, 8), jnp.float32)
-
-        elem = jax.make_jaxpr(lambda q: -0.5 * jnp.sum(q * q, axis=0))(spec)
-        assert not _jaxpr_has_mxu_ops(elem.jaxpr)
-
-        W = np.eye(4, dtype=np.float32)
-        mm = jax.make_jaxpr(
-            lambda q: -0.5 * jnp.sum((W @ q) * q, axis=0)
-        )(spec)
-        assert _jaxpr_has_mxu_ops(mm.jaxpr)
-
-    def test_mxu_detector_recurses_into_scan(self):
-        from genjax_tpu.kernels.hmc import _jaxpr_has_mxu_ops
-
-        W = np.eye(4, dtype=np.float32)
-
-        def scanned(q):
-            def body(c, _):
-                return c + W @ q, None
-
-            c, _ = jax.lax.scan(body, jnp.zeros_like(q), None, length=2)
-            return jnp.sum(c, axis=0)
-
-        closed = jax.make_jaxpr(scanned)(
-            jax.ShapeDtypeStruct((4, 8), jnp.float32)
-        )
-        assert _jaxpr_has_mxu_ops(closed.jaxpr)
-
-    def test_select_backend_is_xla_off_tpu(self):
-        from genjax_tpu.kernels.hmc import select_hmc_backend
-
-        # CPU/interpret environments always take the XLA twin, even for
-        # purely elementwise bodies (the pallas win is a TPU measurement)
-        assert (
-            select_hmc_backend(
-                lambda q: -0.5 * jnp.sum(q * q, axis=0), 4, 8
-            )
-            == "xla"
-        )
-
-    def test_auto_backend_end_to_end(self):
-        """column_hmc's default backend="auto" must run (routing to the
-        XLA twin here) and recover the conjugate posterior."""
-        obs = g.C["y"].set(2.0)
-        q, acc, _packer = column_hmc(
-            conjugate, obs, (), ["mu"],
-            n_chains=1024, n_steps=200, eps=0.5, L=5,
-        )
-        assert float(acc) > 0.6
-        assert jnp.mean(q[0, :]) == pytest.approx(1.0, abs=0.15)
-
-    def test_whitelist_rejects_non_elementwise_bodies(self):
-        """Auto-routing is a whitelist: bodies with gathers/sorts/cumsum
-        (lowerable by XLA, not guaranteed by the Mosaic kernel) must not
-        classify as pallas-safe even without MXU ops."""
-        from genjax_tpu.kernels.hmc import _jaxpr_prims, _PALLAS_SAFE_PRIMS
-
-        spec = jax.ShapeDtypeStruct((4, 8), jnp.float32)
-
-        elem = jax.make_jaxpr(
-            lambda q: -0.5 * jnp.sum(q * q, axis=0) + jnp.tanh(q[0])
-        )(spec)
-        assert set(_jaxpr_prims(elem.jaxpr)) <= _PALLAS_SAFE_PRIMS
-
-        idx = np.zeros(4, np.int32)
-        gathered = jax.make_jaxpr(
-            lambda q: -0.5 * jnp.sum(q[idx] * q, axis=0)
-        )(spec)
-        assert not set(_jaxpr_prims(gathered.jaxpr)) <= _PALLAS_SAFE_PRIMS
-
-        sorted_ = jax.make_jaxpr(
-            lambda q: jnp.sum(jnp.sort(q, axis=0), axis=0)
-        )(spec)
-        assert not set(_jaxpr_prims(sorted_.jaxpr)) <= _PALLAS_SAFE_PRIMS
-
-    def test_auto_block_floor_raises_on_pathological_chain_count(self):
-        """The block auto-pick walks divisors only down to a sane lane
-        tile; a chain count with no divisor in [128, 2048] must fail
-        loudly, not silently run 2-lane blocks."""
-        from genjax_tpu.kernels import pallas_hmc
-
-        q0 = np.zeros((4, 2 * 2053), np.float32)  # no divisor in range
-        with pytest.raises(ValueError, match="no divisor"):
-            pallas_hmc(
-                lambda q: -0.5 * jnp.sum(q * q, axis=0),
-                q0, 0, n_steps=1, eps=0.1, L=1, backend="pallas",
-                interpret=True,
-            )

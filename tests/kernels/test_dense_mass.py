@@ -183,7 +183,6 @@ class TestColumnBridgeDense:
             L=4,
             warmup=True,
             mass="dense",
-            backend="xla",
         )
         assert float(accept) > 0.5, float(accept)
         draws = np.asarray(q[:2])  # first two packed dims = w

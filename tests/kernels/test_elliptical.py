@@ -5,6 +5,7 @@ closed form; the GP-latent case cross-checks `models/gp.py.gp_posterior`."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from genjax_tpu.kernels.elliptical import ess_sweep_cols, ess_transition_cols
 
@@ -237,54 +238,58 @@ class TestGaussianFastPath:
         np.testing.assert_allclose(draws.var(axis=1), v, rtol=0.15)
 
 
-class TestPallasGaussKernel:
-    """The VMEM-fused Mosaic Gaussian-ESS kernel, run under the Pallas
-    interpreter on CPU (its own PRNG stream — validated statistically
-    against the same conjugate closed form as the XLA paths)."""
+class TestGaussianFastPathPriors:
+    """``ess_sweep_gauss_cols`` with every prior-factor form it accepts,
+    over chain batches of any size, against the conjugate closed form
+    (prior N(0, diag(sd^2)), likelihood N(y | f, s2 I))."""
 
-    def test_posterior_moments_exact(self):
-        from genjax_tpu.kernels.elliptical import ess_sweep_gauss_pallas
-
-        rng = np.random.RandomState(4)
-        D, s2 = 3, 0.25
-        A = rng.randn(D, D)
-        Sigma = (A @ A.T + D * np.eye(D)).astype(np.float32) / D
-        y = rng.randn(D).astype(np.float32)
-        C = np.linalg.inv(np.linalg.inv(Sigma) + np.eye(D) / s2)
-        m_post = C @ y / s2
-        chol = jnp.asarray(np.linalg.cholesky(Sigma))
-
-        q0 = jnp.zeros((D, 512), jnp.float32)
-        q = jax.jit(
-            lambda: ess_sweep_gauss_pallas(
-                q0, 0, n_steps=250, chol_prior=chol, y=y, prec=1.0 / s2,
-                interpret=True,
-            )
-        )()
-        draws = np.asarray(q)
-        np.testing.assert_allclose(draws.mean(axis=1), m_post, atol=0.1)
-        np.testing.assert_allclose(np.cov(draws), C, atol=0.1)
-
-    def test_multi_block_grid_and_diag_prior(self):
-        """Two chain blocks (distinct per-block PRNG streams) + a scalar
-        (diagonal) prior factor; posterior of N(0,1) prior x N(y|f, s2)
-        likelihood per dim."""
-        from genjax_tpu.kernels.elliptical import ess_sweep_gauss_pallas
+    @pytest.mark.parametrize(
+        "prior", ["scalar_sd", "vector_sd", "diag_cholesky"]
+    )
+    def test_diagonal_prior_forms(self, prior):
+        from genjax_tpu.kernels.elliptical import ess_sweep_gauss_cols
 
         s2 = 0.5
+        sd = np.asarray([1.0, 1.0], np.float32)
+        if prior == "vector_sd":
+            sd = np.asarray([0.5, 2.0], np.float32)
+        chol_prior = {
+            "scalar_sd": 1.0,
+            "vector_sd": sd,
+            "diag_cholesky": np.diag(sd),
+        }[prior]
         y = np.asarray([1.0, -1.0], np.float32)
-        v = 1.0 / (1.0 + 1.0 / s2)
+        v = 1.0 / (1.0 / sd**2 + 1.0 / s2)
         m_post = v * y / s2
 
-        q0 = jnp.zeros((2, 512), jnp.float32)
-        q = ess_sweep_gauss_pallas(
-            q0, 3, n_steps=200, chol_prior=1.0, y=y, prec=1.0 / s2,
-            block_n=256, interpret=True,
+        q0 = jnp.zeros((2, 1024), jnp.float32)
+        q, _ = ess_sweep_gauss_cols(
+            q0, 3, n_steps=200, chol_prior=chol_prior, y=y, prec=1.0 / s2,
         )
         draws = np.asarray(q)
         np.testing.assert_allclose(draws.mean(axis=1), m_post, atol=0.08)
-        np.testing.assert_allclose(
-            draws.var(axis=1), v, rtol=0.2
+        np.testing.assert_allclose(draws.var(axis=1), v, rtol=0.2)
+
+    @pytest.mark.parametrize("n_chains", [1, 777, 2 * 1024])
+    def test_chain_blocks_of_any_size(self, n_chains):
+        """No blocking constraint on the chain count; each column is an
+        independent chain, so two halves of one batch are two
+        independent samples (they differ)."""
+        from genjax_tpu.kernels.elliptical import ess_sweep_gauss_cols
+
+        y = np.asarray([0.5, -0.5, 1.0], np.float32)
+        q0 = jnp.zeros((3, n_chains), jnp.float32)
+        q, draws = ess_sweep_gauss_cols(
+            q0, 5, n_steps=50, chol_prior=1.0, y=y, prec=2.0, collect=True,
         )
-        # the two blocks saw different randomness
-        assert not np.allclose(draws[:, :256], draws[:, 256:])
+        assert q.shape == (3, n_chains)
+        assert draws.shape == (50, 3, n_chains)
+        assert bool(jnp.all(jnp.isfinite(q)))
+        np.testing.assert_array_equal(np.asarray(draws[-1]), np.asarray(q))
+        if n_chains >= 2 * 1024:
+            half = n_chains // 2
+            assert not np.allclose(q[:, :half], q[:, half:])
+            v = 1.0 / (1.0 + 2.0)
+            np.testing.assert_allclose(
+                np.asarray(q).mean(axis=1), v * 2.0 * y, atol=0.06
+            )

@@ -123,7 +123,6 @@ class TestGenModel:
             n_steps=150,
             eps=0.05,
             L=8,
-            backend="xla",
         )
         assert float(accept) > 0.5
         draws = np.asarray(q[:3])

@@ -33,7 +33,7 @@ class TestRegression:
 
         q, acc, packer = column_hmc(
             model, g.C["y"].set(y), (), ["w"],
-            n_chains=2048, n_steps=200, eps=0.05, L=5, backend="xla",
+            n_chains=2048, n_steps=200, eps=0.05, L=5,
         )
         emp_mean = jnp.mean(q[:3, :], axis=1)
         assert jnp.allclose(emp_mean, mean, atol=0.1)
@@ -116,7 +116,7 @@ class TestLogisticRegression:
         obs = g.C["obs", :, "y"].set(jnp.asarray(y))
         q, acc, packer = column_hmc(
             model, obs, (), ["w"],
-            n_chains=1024, n_steps=500, eps=0.08, L=5, backend="xla",
+            n_chains=1024, n_steps=500, eps=0.08, L=5,
         )
         w_mean = jnp.mean(q[:2, :], axis=1)
         # posterior mean points in the direction of the true weights

@@ -107,7 +107,7 @@ class TestDataShardedLogdensity:
         q0 = jnp.asarray(rng.randn(8, 512), jnp.float32)
         q, accept = jax.jit(
             lambda: pallas_hmc(
-                ld, q0, 7, n_steps=300, eps=0.15, L=8, backend="xla"
+                ld, q0, 7, n_steps=300, eps=0.15, L=8
             )
         )()
         draws = np.asarray(q[0])

@@ -91,7 +91,7 @@ class TestTPBNN:
 
         def run(ld, q):
             return pallas_hmc(
-                ld, q, 11, n_steps=3, eps=0.01, L=3, backend="xla"
+                ld, q, 11, n_steps=3, eps=0.01, L=3
             )
 
         q_tp, acc_tp = jax.jit(lambda q: run(ld_tp, q))(
@@ -115,7 +115,7 @@ class TestTPBNN:
         lp0 = jnp.mean(jax.jit(ld_tp)(q0))
         q1, acc = jax.jit(
             lambda q: pallas_hmc(
-                ld_tp, q, 3, n_steps=25, eps=0.02, L=5, backend="xla"
+                ld_tp, q, 3, n_steps=25, eps=0.02, L=5
             )
         )(q0)
         lp1 = jnp.mean(jax.jit(ld_tp)(q1))
